@@ -6,7 +6,7 @@
  * directions, matching FFTW semantics. Radix-2 iterative Cooley-Tukey for
  * power-of-2 sizes, naive DFT otherwise (test sizes are small).
  *
- * Original code; only used for tests, never in the TPU compute path.
+ * Original code; only used for tests, never in the device compute path.
  */
 #pragma once
 

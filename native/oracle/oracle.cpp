@@ -7,7 +7,7 @@
 //
 // No reference code is copied into this repository: the headers are included
 // from the read-only reference tree at build time, and the resulting binary
-// is a test-only artifact (never part of the TPU compute path).
+// is a test-only artifact (never part of the device compute path).
 //
 // Usage: oracle <chain> <in.f32> <out.f32> <blockSize> [params...]
 //   in/out are raw little-endian float32; complex streams are interleaved

@@ -8,7 +8,7 @@
  * documented semantics (function signature + elementwise definition); it
  * contains no VOLK or SDRPP code.
  *
- * Only used for tests (tools/oracle); never in the TPU compute path.
+ * Only used for tests (tools/oracle); never in the device compute path.
  */
 #pragma once
 

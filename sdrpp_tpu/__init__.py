@@ -1,4 +1,4 @@
-"""sdrpp_tpu — a TPU-native software-defined-radio signal-chain framework.
+"""sdrpp_tpu — a JAX software-defined-radio signal-chain framework.
 
 Brand-new JAX/XLA/Pallas implementation of the capabilities of qrp73/SDRPP's
 receive chain (see SURVEY.md): batched IQ blocks through jit'd kernels

@@ -9,7 +9,7 @@ average levels of the two halves of the sync region (linesync.h:109-135 —
 left = samples [703..719]+[0..26], right = [27..70], only when both sit
 below the sync level).
 
-TPU formulation: within a line the loop error is zero, so sample positions
+Formulation: within a line the loop error is zero, so sample positions
 advance UNIFORMLY by ``freq`` — a whole line is one vectorized 720-point
 fractional-delay gather; only the per-line error update is sequential
 (a scan over lines, not samples).

@@ -213,8 +213,7 @@ class Falcon9Decoder:
     def __init__(self, samplerate: float = INPUT_RATE):
         import jax
 
-        from ..ops.clock_recovery_pallas import MMClockRecoveryPallas as \
-            MMClockRecovery  # Pallas on TPU (3.57 MBaud needs it)
+        from ..ops.clock_recovery import MMClockRecovery
         from ..ops.deframing import Deframer
         from ..ops.fm import Quadrature
 

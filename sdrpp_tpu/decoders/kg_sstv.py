@@ -121,8 +121,7 @@ class KGSSTVDecoder:
         import jax.numpy as jnp
 
         from ..ops import taps as taps_mod
-        from ..ops.clock_recovery_pallas import MMClockRecoveryPallas as \
-        MMClockRecovery  # Pallas scalar kernel on TPU
+        from ..ops.clock_recovery import MMClockRecovery
         from ..ops.fir import FIR
         from ..ops.fm import Quadrature
 

@@ -2,7 +2,7 @@
 
 Reference: core/src/signal_path/sink.{h,cpp} — named stereo streams, each a
 splitter -> volume -> pluggable provider (audio device / network / file).
-On a TPU host the providers are files/buffers/sockets; volume is the same
+On an accelerator host the providers are files/buffers/sockets; volume is the same
 log-scale multiplier applied host-side.
 """
 

@@ -4,7 +4,7 @@ The reference has 25 hardware/network/file source plugins registered with a
 SourceManager (core/src/signal_path/source.h:9-56); each pushes IQ from a
 driver thread. Here a source is a host-side object with ``read(n) ->
 np.complex64`` + ``samplerate`` + ``tune(freq)``; hardware sources are out
-of scope on a TPU host, so the built-ins are:
+of scope on an accelerator host, so the built-ins are:
 
 - FileSource: WAV IQ playback with looping and seek
   (source_modules/file_source/src/main.cpp — format matrix in io/wav.py,

@@ -1,7 +1,7 @@
 """Analog demodulators: AM, SSB/DSB, CW, NFM, WFM (stereo + RDS tap).
 
 Each demodulator is a pure stateful block ``(state, iq_block) -> (state,
-audio_block)`` composed from ops kernels — the TPU equivalent of the
+audio_block)`` composed from ops kernels — the equivalent of the
 reference's demod classes (core/src/dsp/demod/*.h). Default rates/bandwidths
 follow the radio module (decoder_modules/radio/src/demodulators/*.h):
 WFM 240 kHz IF, NFM/USB/LSB/DSB 48 kHz, AM 24 kHz, CW 3 kHz.
@@ -22,8 +22,8 @@ from ..ops.fm import Quadrature
 from ..ops.mix import FrequencyXlator, hz_to_rads
 from ..ops.resample import RationalResampler
 from ..ops.scans import DCBlocker
-# Chunked variants: exact Pallas/lax.scan recurrences for short blocks,
-# lane-parallel approximate loops (documented warm-up contract, see
+# Chunked variants: exact recurrences (lane kernel or lax.scan) for short
+# blocks, lane-parallel approximate loops (documented warm-up contract, see
 # ops/scans_pallas.py) for the long 1-D blocks of the high-rate bench
 # paths. SDRPP_TPU_LOOPS=exact disables the approximation globally.
 from ..ops.scans_pallas import AGCChunked as AGC, PLLChunked as PLL

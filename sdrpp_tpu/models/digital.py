@@ -12,9 +12,9 @@ Reference chains:
 
 Outputs are (symbols[max_syms], valid[max_syms]) blocks from the MM
 synchronizer where `valid` is a boolean MASK, not a prefix: the default
-chunk-parallel TPU path emits lane-major valid slots, so consumers MUST
+chunk-parallel path emits lane-major valid slots, so consumers MUST
 boolean-index (`symbols[np.asarray(valid).astype(bool)]`). Only the
-exact/fallback scalar kernel happens to produce a prefix-shaped mask.
+exact sequential scan happens to produce a prefix-shaped mask.
 """
 
 from __future__ import annotations
@@ -25,9 +25,8 @@ import jax.numpy as jnp
 
 from ..ops import taps as taps_mod
 from ..ops.clock_recovery_chunked import MMClockRecoveryChunked as \
-    MMClockRecovery  # chunk-parallel on TPU for long 1-D blocks;
-    # falls back to the scalar Pallas/lax.scan kernel for short blocks,
-    # [C, n] banks, and SDRPP_TPU_LOOPS=exact
+    MMClockRecovery  # chunk-parallel for long 1-D blocks; the sequential
+    # scan for short blocks, [C, n] banks, and SDRPP_TPU_LOOPS=exact
 from ..ops.fir import FIR
 from ..ops.fm import Quadrature
 from ..ops.scans import FL_PI, _normalize_phase, _pcl_advance, \
@@ -35,6 +34,7 @@ from ..ops.scans import FL_PI, _normalize_phase, _pcl_advance, \
 from ..ops.scans_pallas import CostasChunked as Costas, \
     FastAGCChunked as FastAGC
 from ..utils.blocks import Block
+from ..utils.platform import pallas_gpu_supported
 
 __all__ = ["PSKDemod", "GFSKDemod", "MeteorCostas", "MeteorDemod"]
 
@@ -151,16 +151,17 @@ class MeteorCostas(Block):
         return jnp.clip(step_re * v.imag - step_im * v.real, -1.0, 1.0)
 
     def __call__(self, state, x):
-        from ..ops.scans_pallas import (_chunk_lanes_for, _pallas_on_tpu,
+        from ..ops.scans_pallas import (_chunk_lanes_for,
                                         costas_phases_chunked,
                                         costas_phases_pallas, costas_streams)
 
         order = "meteor" if self.broken else 4
         hist = lambda h, s: jnp.concatenate(
             [h, s.astype(jnp.float32)], axis=-1)[..., -self.warmup:]
+        kernel = x.ndim == 1 and pallas_gpu_supported()
         k = _chunk_lanes_for(x.shape[-1], self.warmup, self.max_lanes)
 
-        if x.ndim == 1 and k >= 1 and _pallas_on_tpu():
+        if kernel and k >= 1:
             s1, s2 = costas_streams(x.real, x.imag, order)
             h1, h2 = costas_streams(state["hist_re"], state["hist_im"], order)
             out_phases, _, _, ph, fr = costas_phases_chunked(
@@ -172,7 +173,7 @@ class MeteorCostas(Block):
                     "hist_re": hist(state["hist_re"], x.real),
                     "hist_im": hist(state["hist_im"], x.imag)}, x * lo
 
-        if x.ndim == 1 and _pallas_on_tpu():
+        if kernel:
             out_phases, ph, fr = costas_phases_pallas(
                 x.real, x.imag, state["phase"], state["freq"],
                 order, self.alpha, self.beta,
@@ -184,7 +185,7 @@ class MeteorCostas(Block):
 
         if self.broken:
             # Phase-domain meteor error, the same formulation as the
-            # Pallas kernel (which cannot lower atan2): rotation preserves
+            # lane kernel: rotation preserves
             # magnitude and shifts angle, so atan2/|v| vectorize OUTSIDE
             # the scan and the body works on normalize(in_phase - phase).
             # vs the reference's rotate-then-atan2 this differs by float

@@ -108,12 +108,12 @@ class LRPTDecoder:
         """Viterbi-decode a coded soft-bit stream to packed bytes.
 
         Uses the chunk-parallel truncated decode (overlapping warm-up
-        windows batched in VPU sublanes): with the default 96-bit overlap
+        windows decoded side by side): with the default 96-bit overlap
         (~14 constraint lengths for K=7) the output can differ from the
         exact libcorrect decode near chunk seams only at very low SNR.
         Weak-signal users can trade speed for exactness: raise
         ``overlap_bits`` (seam-error probability falls exponentially), or
-        set ``SDRPP_TPU_VITERBI=scan`` to force the exact full-trellis
+        call ``self.conv.decode_soft_np`` for the exact full-trellis
         decode (what the reference's libcorrect always does).
         """
         from .. import ops

@@ -20,8 +20,7 @@ import jax.numpy as jnp
 
 from ..decoders.rds import RDSDecoder
 from ..ops import taps as taps_mod
-from ..ops.clock_recovery_pallas import MMClockRecoveryPallas as \
-    MMClockRecovery  # Pallas scalar kernel on TPU, lax.scan elsewhere
+from ..ops.clock_recovery import MMClockRecovery
 from ..ops.digital import DifferentialDecoder, binary_slicer
 from ..ops.fir import FIR
 from ..ops.mix import hz_to_rads

@@ -1,6 +1,6 @@
 """Shared-FFT channelizer bank: N DDCs from ONE wideband FFT.
 
-The SURVEY §2.5 TPU plan for the VFO bank: "consider FFT-based channelizer
+The SURVEY §2.5 plan for the VFO bank: "consider FFT-based channelizer
 (per-channel overlap-save sharing one forward FFT of the wideband block)".
 This implements it, as a drop-in alternative to the time-domain
 mix -> FIR-cascade VFOBank (parallel/vfo_bank.py):
@@ -136,8 +136,7 @@ class FFTChannelizerBank(Block):
             w = np.arange(-M, M)
             # Per channel the pruned window (w - b_c) mod F is a CONTIGUOUS
             # circular slice with a host-known start: static slices lower to
-            # plain copies on TPU, where an equivalent general gather lowers
-            # pathologically (measured 1.9 vs ~25 Gsamp/s chain aggregate).
+            # plain copies, where an equivalent general gather would not.
             plan["starts"] = ((-M - b) % F).astype(np.int64)
             plan["Hw"] = H[np.arange(self.channels)[:, None],
                            w[None, :] % F].astype(np.complex64)

@@ -1,7 +1,7 @@
 """Mueller-Müller clock recovery as a symbol-rate scan.
 
 Reference: core/src/dsp/clock_recovery/mm.h:100-156 — sequential with a
-data-dependent input stride. TPU formulation (SURVEY.md §7 "hard parts"):
+data-dependent input stride. Formulation (SURVEY.md §7 "hard parts"):
 scan over SYMBOLS (not samples) — each step dynamically gathers an
 ``interp_tap_count``-sample window at the current integer offset, runs the
 polyphase-interpolation dot product at the fractional phase, computes the

@@ -3,15 +3,15 @@ applied to the timing loop).
 
 Reference semantics: core/src/dsp/clock_recovery/mm.h:100-156 — one
 sequential loop whose input stride is data-dependent (offset +=
-floor(phase)), ~9 Msym/s on a chip no matter how wide the VPU is. Here
-the stream splits into K overlapping lanes that each re-acquire timing
-over a W-sample warm-up window, batched on the VPU/MXU as ONE
-vectorized lax.scan over symbol-steps. The two problems specific to a
-TIMING loop, and their fixes:
+floor(phase)), one dependent step per symbol however wide the device is.
+Here the stream splits into K overlapping lanes that each re-acquire
+timing over a W-sample warm-up window, batched as ONE vectorized
+lax.scan over symbol-steps (plain XLA, no kernel). The two problems
+specific to a TIMING loop, and their fixes:
 
 1. **Per-lane dynamic sample addresses** (each lane interpolates at its
-   own data-dependent offset — a gather, which lowers pathologically on
-   TPU). Locked lanes all track the SAME transmitted symbol clock, so at
+   own data-dependent offset — a gather per lane and symbol). Locked
+   lanes all track the SAME transmitted symbol clock, so at
    symbol-step s their window starts differ by at most ~omega + jitter
    (their start phases are spread over one symbol, and omega_rel_limit
    caps drift): a group of M symbols x K lanes all interpolate from ONE
@@ -31,17 +31,16 @@ TIMING loop, and their fixes:
    [K, msc] (chronological within a lane, lanes ordered by their
    disjoint position ranges) and lane k masks out emissions within
    omega/2 of lane k-1's LAST emitted position (one per-lane max + one
-   elementwise compare). A global argsort + prefix compaction here
-   measured 3.2-4.3 SECONDS on the chip — large 1-D sorts/cumsums lower
-   pathologically on TPU — so ``valid`` is a boolean MASK, not a
-   prefix; consumers boolean-index. Block seams need no dedup at all:
+   elementwise compare) instead of a global argsort + prefix
+   compaction, so ``valid`` is a boolean MASK, not a prefix; consumers
+   boolean-index. Block seams need no dedup at all:
    lane 0 seeds from the carried exact symbol grid.
 
 Approximation contract (tests/test_clock_recovery_chunked.py): on a
 timing-locked stream with W >> the loop's convergence time, the emitted
 symbol sequence matches the sequential loop's (same count, same values
 to interpolation tolerance); SDRPP_TPU_LOOPS=exact (or a short block)
-falls back to the sequential kernel bit-identically.
+falls back to the sequential scan bit-identically.
 
 Noise contract (tests/test_chunked_stress.py, measured bounds): with
 AWGN at Eb/N0 = 5 dB (the top of the LRPT operating band; below ~4 dB
@@ -61,8 +60,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .clock_recovery_pallas import MMClockRecoveryPallas
-from .scans_pallas import _pallas_on_tpu
+from .clock_recovery import MMClockRecovery
 
 __all__ = ["MMClockRecoveryChunked", "mm_symbols_chunked"]
 
@@ -123,9 +121,8 @@ def mm_symbols_chunked(x, hist, offset0, phase0, freq0, err0, bank,
     # below the interpolation jitter. Validated: post-lock decisions
     # match the exact per-symbol loop 100% at M in {8,16,32}
     # (tests/test_clock_recovery_chunked.py, tests/test_chunked_stress.py).
-    # vs the r2 per-symbol scan this cuts sequential steps M/U = 8x: the
-    # step time was >95% fixed overhead (measured 37 us/step for ~0.4 us
-    # of arithmetic).
+    # vs a per-symbol scan this cuts the sequential steps by M, and each
+    # step's time is mostly fixed loop overhead.
     # adaptive group: the warm-up must span SEVERAL groups so the
     # between-group feedback can re-converge a data-aided seed (a lane
     # whose whole warm-up fits in one group would re-acquire open-loop)
@@ -435,11 +432,9 @@ def mm_symbols_chunked(x, hist, offset0, phase0, freq0, err0, bank,
     carry_f, (sr, si, pos, emit) = jax.lax.scan(
         step, carry0, None, length=msc // M)
 
-    # SORT-FREE seam merge (r3): a global argsort + prefix compaction of
-    # the K*msc symbol slots measured 3.2-4.3 SECONDS on the chip (large
-    # 1-D sorts/cumsums lower pathologically on TPU — even a bare 541k
-    # cumsum is 3.1 s) and dominated the whole kernel. But no sort is
-    # needed: per-lane emissions are already chronological, lanes cover
+    # SORT-FREE seam merge: no global argsort + prefix compaction of the
+    # K*msc symbol slots is needed: per-lane emissions are already
+    # chronological, lanes cover
     # disjoint position ranges overlapping only at seams, and a seam
     # duplicate can only be claimed by ADJACENT lanes — so ordering is
     # lane-major [K, msc] by construction, and dedup is "lane k drops
@@ -474,10 +469,10 @@ def mm_symbols_chunked(x, hist, offset0, phase0, freq0, err0, bank,
     return syms, valid, pos, carry
 
 
-class MMClockRecoveryChunked(MMClockRecoveryPallas):
-    """MM clock recovery, chunk-parallel on TPU for long 1-D blocks
-    (K overlapping warm-up lanes + position-dedup symbol merge), the
-    scalar Pallas/scan kernel otherwise. State grows a ``hist`` buffer
+class MMClockRecoveryChunked(MMClockRecovery):
+    """MM clock recovery, chunk-parallel for long 1-D blocks (K
+    overlapping warm-up lanes + position-dedup symbol merge, plain XLA),
+    the sequential scan otherwise. State grows a ``hist`` buffer
     of the last ``warmup + tap_count - 1`` raw samples."""
 
     def __init__(self, *args, warmup: int = 512, max_lanes: int = 256,
@@ -511,7 +506,7 @@ class MMClockRecoveryChunked(MMClockRecoveryPallas):
 
     def max_symbols(self, n: int) -> int:
         k = self._lanes_for(n)
-        if k >= 1 and (self.interpret or _pallas_on_tpu()):
+        if k >= 1:
             L = -(-n // k)
             W = self.warmup
             msc = int(np.ceil((L + W + self.tap_count)
@@ -522,8 +517,7 @@ class MMClockRecoveryChunked(MMClockRecoveryPallas):
 
     def __call__(self, state, x):
         k = self._lanes_for(x.shape[-1])
-        if x.ndim != 1 or k < 1 or \
-                not (self.interpret or _pallas_on_tpu()):
+        if x.ndim != 1 or k < 1:
             sub = {kk: v for kk, v in state.items() if kk != "hist"}
             sub, out = super().__call__(sub, x)
             hist = jnp.concatenate(

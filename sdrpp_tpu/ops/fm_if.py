@@ -5,14 +5,12 @@ Reference: core/src/dsp/noise_reduction/fm_if.h:45-77 — for EVERY sample, a
 highest-magnitude bin, inverse FFT, take the center sample. The reference
 brute-forces one forward+inverse FFTW pair per sample.
 
-TPU-first structure (SURVEY §2.7: "actually a great MXU/VPU fit"): the
+Structure (SURVEY §2.7): the
 sliding windowed ``bins``-point DFT IS a 2-in/2*bins-out real convolution —
 spec[t, k] = sum_j buf[t+j] * window[j] * e^{-2πi jk/bins} — so the whole
 block runs as ONE ``lax.conv_general_dilated`` whose kernel packs the
-windowed DFT matrix (real/imag planes as channels). XLA lowers that
-straight onto the MXU; no [n, bins] gather, no batched tiny FFTs (both of
-which mis-lowered badly enough that the first version ran SLOWER on TPU
-than CPU: 2.1 vs 4.5 Msamp/s — the conv form measures >100x that).
+windowed DFT matrix (real/imag planes as channels); no [n, bins] gather,
+no batched tiny FFTs.
 
 Bin selection stays vectorized: argmax over the bin axis, then a one-hot
 masked sum instead of ``take_along_axis`` (no gather on the hot path).
@@ -68,6 +66,7 @@ class FMIFNoiseReduction(Block):
         out = jax.lax.conv_general_dilated(
             inp, jnp.asarray(self._kernel), (1,), "VALID",
             dimension_numbers=("NCH", "OIH", "NCH"),
+            precision=jax.lax.Precision.HIGHEST,  # no TF32 on a GPU
             preferred_element_type=jnp.float32)  # [B, 2b, n]
         sr, si = out[:, :b, :], out[:, b:, :]
         mag2 = sr * sr + si * si

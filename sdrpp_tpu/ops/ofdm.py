@@ -9,7 +9,7 @@ Reference: decoder_modules/dab_decoder/src/dab_dsp.h —
   symbol against the known DAB PRS via 2048-point FFTs for frame sync +
   coarse/fine CFO.
 
-TPU design: the reference recomputes the correlation incrementally one
+Design: the reference recomputes the correlation incrementally one
 sample at a time; here the whole block's correlation comes from ONE
 prefix-sum: corr = S[i] - S[i-prefix] with S = cumsum(conj(x)*x_shift) —
 fully parallel. The peak/framing decisions stay a tiny lax.scan over

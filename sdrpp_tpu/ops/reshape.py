@@ -3,7 +3,7 @@
 Reference: core/src/dsp/buffer/reshaper.h:11-137 (keep N samples, skip M,
 emit N-sample frames — feeds the FFT display and constellation/symbol
 diagrams) and buffer/packer.h:6-68 (accumulate into fixed-size frames).
-On TPU these are strided reshapes with a carried partial frame.
+Here these are strided reshapes with a carried partial frame.
 """
 
 from __future__ import annotations

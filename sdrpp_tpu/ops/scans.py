@@ -39,7 +39,7 @@ def affine_scan(a, b, y0):
     matching b. Composition of affine maps is associative:
     (a2,b2)∘(a1,b1) = (a2*a1, a2*b1 + b2), so lax.associative_scan computes
     all prefixes in O(log n) depth — this is how first-order IIRs
-    (de-emphasis, DC blocker) run in parallel on the VPU instead of a
+    (de-emphasis, DC blocker) run in parallel instead of a
     1-sample-per-step loop.
     """
     b = jnp.asarray(b)
@@ -398,8 +398,7 @@ class Squelch(Block):
             "cnt": jnp.zeros(self.lead_shape, jnp.int32),
             # threshold lives in STATE (like the reference's runtime
             # setLevel, squelch.h:63-66): a UI squelch-knob change is a
-            # scalar state write, not a re-trace — on a remote-TPU link a
-            # re-jit costs tens of seconds
+            # scalar state write, not a re-trace (a re-jit costs seconds)
             "level": jnp.full((), self.level, jnp.float32),
         }
 

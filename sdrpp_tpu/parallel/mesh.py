@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers.
 
 The reference is a single-process thread pipeline (SURVEY.md §2.15); the
-TPU-native scaling axes are (a) channels — a VFO bank sharded across chips —
+scaling axes here are (a) channels — a VFO bank sharded across devices —
 and (b) time — long-IQ blocks split with FIR-halo exchange. This module
 holds the mesh plumbing both use: a 1- or 2-axis ``jax.sharding.Mesh`` with
 named axes ``('channels', 'time')`` and NamedSharding helpers.

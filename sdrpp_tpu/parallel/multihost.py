@@ -99,8 +99,8 @@ class MultiHostReceiver:
         self.bank = ScannerBank(offsets_hz, in_samplerate, mode=mode,
                                 if_rate=if_rate, bandwidth=bandwidth)
         self.block_multiple = self.bank.block_multiple
-        # production path = shard_map (GSPMD cannot partition the Mosaic
-        # kernels the demods use on real TPU — vfo_bank.sharded_step)
+        # production path = shard_map (GSPMD does not partition the Pallas
+        # kernels the demods use — vfo_bank.sharded_step)
         from jax.sharding import NamedSharding, PartitionSpec as P
         self._step, specs = self.bank.sharded_step(self.mesh)
         self._state = jax.tree_util.tree_map(

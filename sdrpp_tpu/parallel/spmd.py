@@ -4,9 +4,8 @@ shard_map.
 Why this exists: the VFO-bank stages bake per-channel host tables into the
 trace (mix_bank's phase-ramp tables, FFTChannelizerBank's tap spectra /
 bin starts). Under GSPMD auto-partitioning that is fine — the compiler
-splits the constants — but GSPMD CANNOT partition Mosaic (Pallas) custom
-calls at all ("Mosaic kernels cannot be automatically partitioned"), so
-the production bank on a real multi-chip mesh must run under shard_map,
+splits the constants — but GSPMD does not partition Pallas custom calls,
+so the production bank on a multi-device mesh runs under shard_map,
 where each device traces the SAME program on LOCAL [C/d, ...] shards and
 a baked [C_total, ...] constant no longer lines up.
 
@@ -17,10 +16,6 @@ a (small, replicated) constant and take their device's row block with a
 ``dynamic_slice`` at ``axis_index * C_local``. Everything else in the
 bank is shape-polymorphic over the leading channel axis and needs no
 change.
-
-(Discovered by tools/check_aot_topology.py AOT-compiling the bank against
-a real v5e topology — the CPU-mesh dryrun never sees it because Pallas
-falls back to lax.scan off-TPU.)
 """
 
 from __future__ import annotations

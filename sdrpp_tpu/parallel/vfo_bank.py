@@ -105,7 +105,7 @@ class ScannerBank(Block):
         self.mode = mode
         ls = (self.channels,)
         if channelizer == "fft":
-            # shared-FFT channelizer (SURVEY §2.5 TPU plan): one wideband
+            # shared-FFT channelizer (SURVEY §2.5 plan): one wideband
             # FFT + per-channel pruned frequency-domain filtering; needs an
             # integer in/if rate ratio (ops/channelizer.py)
             from ..ops.channelizer import FFTChannelizerBank
@@ -183,17 +183,15 @@ class ScannerBank(Block):
         return sharded, in_sh, out_sh
 
     def sharded_step(self, mesh, axis="channels"):
-        """The PRODUCTION multi-chip step: the whole bank under shard_map
+        """The PRODUCTION multi-device step: the whole bank under shard_map
         over the channel axis (``axis``: one mesh axis name or a tuple —
         e.g. ('host', 'chip') on a 2-D mesh).
 
-        Why not plain jit + in_shardings: GSPMD cannot partition Mosaic
-        (Pallas) custom calls, so the lane-batched AGC/PLL kernels inside
-        the demods make auto-partitioning REJECT the program on real
-        multi-chip TPU (found by tools/check_aot_topology.py; the CPU
-        dryrun can't see it because Pallas falls back to lax.scan
-        off-TPU). Under shard_map each device runs the bank on its local
-        [C/d] channel shard — Pallas kernels included — and the
+        Why not plain jit + in_shardings: GSPMD does not partition Pallas
+        custom calls, so the lane-kernel AGC/PLL inside the demods would
+        keep auto-partitioning from splitting the program. Under
+        shard_map each device runs the bank on its local [C/d] channel
+        shard — Pallas kernels included — and the
         per-channel table-baking stages slice their tables via
         parallel/spmd.channel_shard.
 

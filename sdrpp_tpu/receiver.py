@@ -1,6 +1,6 @@
 """Receiver: the standing graph — source -> front end -> VFOs -> sinks.
 
-The TPU equivalent of MainWindow's wiring + VFOManager
+The equivalent of MainWindow's wiring + VFOManager
 (core/src/gui/main_window.cpp:31-226, core/src/signal_path/vfo_manager.h):
 a host loop pulls IQ blocks from the selected source, runs ONE jitted step
 (front end + every radio channel), and routes per-channel audio to sinks

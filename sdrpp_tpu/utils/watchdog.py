@@ -3,7 +3,7 @@
 The reference's resilience is thread-level: worker threads trap
 exceptions and log (core/src/utils/threading.h:55-61), file_source
 resyncs its clock on underrun (file_source/src/main.cpp:144-152). For a
-TPU serving loop the failure modes are different — a backend/tunnel call
+device serving loop the failure modes are different — a backend call
 can raise transiently (or hang), and the fix is retry/re-jit/resume, not
 thread restarts. SURVEY §5's plan: DSP state is a tiny pytree, so periodic
 snapshots give cheap resume.

@@ -2,7 +2,7 @@
 
 SURVEY.md §4 test strategy: multi-chip sharding logic is validated on a
 virtual CPU mesh (xla_force_host_platform_device_count) so tests run without
-TPU hardware; numerical kernels are compared against NumPy oracles.
+accelerator hardware; numerical kernels are compared against NumPy oracles.
 
 Note: env vars alone are not enough — pytest plugins may import jax before
 this file runs, so also force the platform through jax.config (works as long

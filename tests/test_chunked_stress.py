@@ -36,6 +36,7 @@ import jax.numpy as jnp
 from sdrpp_tpu.ops import taps as taps_mod
 from sdrpp_tpu.ops.clock_recovery import MMClockRecovery
 from sdrpp_tpu.ops.clock_recovery_chunked import MMClockRecoveryChunked
+from sdrpp_tpu.ops import scans_pallas as SP
 from sdrpp_tpu.ops.scans_pallas import CostasChunked, CostasPallas
 
 
@@ -108,8 +109,7 @@ def test_mm_chunked_awgn_bounded_degradation():
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=True)
     r, _ = _run_mm(MMClockRecovery(**kw), sig)
-    c, _ = _run_mm(MMClockRecoveryChunked(**kw, warmup=512,
-                                          interpret=True), sig)
+    c, _ = _run_mm(MMClockRecoveryChunked(**kw, warmup=512), sig)
     sr, offr = _windowed_ser(r, tx)
     sc, offc = _windowed_ser(c, tx)
     assert sr.mean() < 0.03, sr.mean()  # the exact loop is healthy here
@@ -125,8 +125,7 @@ def test_mm_chunked_clock_rate_offset_near_limit():
     kw = dict(omega=sps * 1.008, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=True)
     r, s1 = _run_mm(MMClockRecovery(**kw), sig)
-    c, s2 = _run_mm(MMClockRecoveryChunked(**kw, warmup=512,
-                                           interpret=True), sig)
+    c, s2 = _run_mm(MMClockRecoveryChunked(**kw, warmup=512), sig)
     assert abs(len(r) - len(c)) <= 1, (len(r), len(c))
     m = min(len(r), len(c))
     qr, qc = _quant(r[500:m]), _quant(c[500:m])
@@ -157,8 +156,7 @@ def test_mm_chunked_squelched_warmup_gap():
         return best
 
     for cls, extra in [(MMClockRecovery, {}),
-                       (MMClockRecoveryChunked,
-                        dict(warmup=512, interpret=True))]:
+                       (MMClockRecoveryChunked, dict(warmup=512))]:
         mm = cls(**kw, **extra)
         got, st = _run_mm(mm, sigg, blocks=1)
         assert not np.isnan(got).any()
@@ -230,7 +228,7 @@ def test_costas_chunked_squelched_warmup_window():
     assert np.sqrt(np.mean(err ** 2)) < 0.05, np.sqrt(np.mean(err ** 2))
 
 
-def test_meteor_chain_awgn_chunked_vs_exact():
+def test_meteor_chain_awgn_chunked_vs_exact(monkeypatch):
     """Chain-level (RRC -> AGC -> Costas -> chunked MM) at Eb/N0 = 5 dB:
     decisions agree with the exact-MM chain within 3% (common noise
     flips borderline symbols both ways) with zero relative timing
@@ -240,8 +238,8 @@ def test_meteor_chain_awgn_chunked_vs_exact():
     sig, tx, sps = _qpsk_shaped(1 << 18, ebn0_db=5.0, matched_filter=False)
 
     def run(engage):
+        monkeypatch.setattr(SP, "LOOPS_MODE", "auto" if engage else "exact")
         d = MeteorDemod(costas_bandwidth=0.01, agc_rate=0.01)
-        d.recov.interpret = engage
         st = d.init_state()
         out = []
         nb = len(sig) // 2

@@ -15,6 +15,7 @@ timing-locked shaped-PSK stream:
 """
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from sdrpp_tpu.ops import taps as taps_mod
@@ -69,8 +70,7 @@ def test_mm_chunked_float_matches_sequential():
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=False)
     r, c, _, s2 = _run_pair(sig, MMClockRecovery(**kw),
-                            MMClockRecoveryChunked(**kw, warmup=512,
-                                                   interpret=True))
+                            MMClockRecoveryChunked(**kw, warmup=512))
     assert abs(len(r) - len(c)) <= 1, (len(r), len(c))
     m = min(len(r), len(c))
     assert np.mean(np.sign(r[200:m]) == np.sign(c[200:m])) == 1.0
@@ -83,8 +83,7 @@ def test_mm_chunked_complex_matches_sequential():
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=True)
     r, c, _, _ = _run_pair(sig, MMClockRecovery(**kw),
-                           MMClockRecoveryChunked(**kw, warmup=512,
-                                                  interpret=True))
+                           MMClockRecoveryChunked(**kw, warmup=512))
     assert abs(len(r) - len(c)) <= 1, (len(r), len(c))
     m = min(len(r), len(c))
     qr = np.floor(np.angle(r[500:m]) / (np.pi / 2)).astype(int) % 4
@@ -98,12 +97,12 @@ def test_mm_chunked_falls_back_on_short_blocks():
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=False)
     ref = MMClockRecovery(**kw)
-    chk = MMClockRecoveryChunked(**kw, warmup=512, interpret=True)
+    chk = MMClockRecoveryChunked(**kw, warmup=512)
     s1, (y1, v1) = ref(ref.init_state(), jnp.asarray(sig))
     s2, (y2, v2) = chk(chk.init_state(), jnp.asarray(sig))
     y1 = np.asarray(y1)[np.asarray(v1).astype(bool)]
     y2 = np.asarray(y2)[np.asarray(v2).astype(bool)]
-    # same sequential kernel; tolerance matches test_clock_recovery_pallas
+    # same sequential scan
     np.testing.assert_allclose(y1, y2, rtol=0, atol=2e-5)
     np.testing.assert_allclose(np.asarray(s2["hist"])[-8192:],
                                sig[-(512 + 7):], atol=1e-6)
@@ -117,7 +116,7 @@ def test_mm_chunked_exact_mode_is_sequential(monkeypatch):
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=False)
     ref = MMClockRecovery(**kw)
-    chk = MMClockRecoveryChunked(**kw, warmup=512, interpret=True)
+    chk = MMClockRecoveryChunked(**kw, warmup=512)
     s1, (y1, v1) = ref(ref.init_state(), jnp.asarray(sig))
     s2, (y2, v2) = chk(chk.init_state(), jnp.asarray(sig))
     y1 = np.asarray(y1)[np.asarray(v1).astype(bool)]
@@ -134,7 +133,7 @@ def test_mm_chunked_positions_strictly_monotone():
     sig, sps = _bpsk_real(1 << 17)
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=False)
-    chk = MMClockRecoveryChunked(**kw, warmup=512, interpret=True)
+    chk = MMClockRecoveryChunked(**kw, warmup=512)
     st = chk.init_state()
     syms, valid, pos, carry = mm_symbols_chunked(
         jnp.asarray(sig), st["hist"], st["offset"], st["phase"],
@@ -186,7 +185,7 @@ def test_mm_chunked_no_seam_loss_with_lane_padding():
 
     omega = 150000.0 / 72000.0
     chk = MMClockRecoveryChunked(omega, 0.001, 0.01, 0.01,
-                                 complex_input=True, interpret=True)
+                                 complex_input=True)
     bs = len(y) // 2                       # 62500: pad = 86 at K = 122
     assert chk._lanes_for(bs) * (-(-bs // chk._lanes_for(bs))) > bs, \
         "test must exercise a padded lane layout"
@@ -208,7 +207,7 @@ def test_mm_chunked_max_symbols_matches_kernel_output():
     for omega in (10.0, 4.0, 2.0):  # M = 8, 16, 32 respectively
         kw = dict(omega=omega, omega_gain=0.001, mu_gain=0.01,
                   omega_rel_limit=0.01, complex_input=False)
-        chk = MMClockRecoveryChunked(**kw, warmup=512, interpret=True)
+        chk = MMClockRecoveryChunked(**kw, warmup=512)
         n = 1 << 15
         sig = np.random.default_rng(0).standard_normal(n).astype(np.float32)
         _, (syms, valid) = chk(chk.init_state(), jnp.asarray(sig))
@@ -228,7 +227,7 @@ def test_mm_chunked_engages_midsize_block():
     sig, sps = _bpsk_real(1 << 15)
     kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
               omega_rel_limit=0.01, complex_input=False)
-    chk = MMClockRecoveryChunked(**kw, warmup=512, interpret=True)
+    chk = MMClockRecoveryChunked(**kw, warmup=512)
     assert chk._lanes_for(1 << 13) == 16
     r, c, _, _ = _run_pair(sig, MMClockRecovery(**kw), chk, blocks=4)
     assert abs(len(r) - len(c)) <= 1, (len(r), len(c))
@@ -247,9 +246,27 @@ def test_mm_chunked_nondefault_tap_count():
               omega_rel_limit=0.01, complex_input=False,
               interp_tap_count=6)
     r, c, _, _ = _run_pair(sig, MMClockRecovery(**kw),
-                           MMClockRecoveryChunked(**kw, warmup=512,
-                                                  interpret=True))
+                           MMClockRecoveryChunked(**kw, warmup=512))
     assert abs(len(r) - len(c)) <= 1, (len(r), len(c))
     m = min(len(r), len(c))
     assert np.mean(np.sign(r[200:m]) == np.sign(c[200:m])) == 1.0
     assert np.mean(np.abs(r[200:m] - c[200:m])) < 0.05
+
+
+@pytest.mark.parametrize("n,chunked", [(1 << 15, True), (1024, False)])
+def test_mm_chunked_gate(n, chunked):
+    """The chunked MM is plain XLA, so no kernel or interpret flag gates
+    it: a long 1-D block takes the chunk-parallel path on any backend (its
+    output length is the lane layout's), a short one the sequential
+    scan (the base class's length)."""
+    import jax
+
+    sig, sps = _bpsk_real(n)
+    kw = dict(omega=sps, omega_gain=0.001, mu_gain=0.01,
+              omega_rel_limit=0.01, complex_input=False)
+    chk = MMClockRecoveryChunked(**kw, warmup=512)
+    base = MMClockRecovery(**kw)
+    assert (chk._lanes_for(n) >= 1) == chunked
+    assert (chk.max_symbols(n) != base.max_symbols(n)) == chunked
+    _, (y, v) = jax.jit(chk)(chk.init_state(), jnp.asarray(sig))
+    assert y.shape == v.shape == (chk.max_symbols(n),)

@@ -34,7 +34,7 @@ print("RESULT", float(y))
 
 
 def _run(tmp_path):
-    env = dict(os.environ, SDRPP_TPU_CACHE_DIR=str(tmp_path / "cache"),
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cache"),
                JAX_PLATFORMS="cpu")
     return subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                           capture_output=True, text=True, timeout=300)
@@ -64,11 +64,11 @@ def test_malformed_min_secs_env_is_not_fatal(tmp_path, monkeypatch):
 
     from sdrpp_tpu.utils import compile_cache
     monkeypatch.setenv("SDRPP_TPU_CACHE_MIN_SECS", "not-a-number")
-    monkeypatch.setenv("SDRPP_TPU_CACHE_DIR", str(tmp_path / "c"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
     importlib.reload(compile_cache)
     assert compile_cache.enable_persistent_cache() is not None
     monkeypatch.delenv("SDRPP_TPU_CACHE_MIN_SECS")
-    monkeypatch.delenv("SDRPP_TPU_CACHE_DIR")
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
     importlib.reload(compile_cache)
 
 
@@ -81,3 +81,26 @@ def test_opt_out_env(tmp_path, monkeypatch):
     assert compile_cache.enable_persistent_cache() is None
     monkeypatch.delenv("SDRPP_TPU_NO_CACHE")
     importlib.reload(compile_cache)
+
+
+def test_cache_dir_follows_jax_env(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR, where set, is the cache directory; HOME
+    and XDG_CACHE_HOME play no part."""
+    from sdrpp_tpu.utils import compile_cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "j"))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    assert compile_cache.default_cache_dir() == tmp_path / "j"
+
+
+def test_cache_dir_defaults_inside_checkout(tmp_path, monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache sits at a fixed path in
+    the checkout that .gitignore lists — never under the home directory."""
+    from pathlib import Path
+
+    from sdrpp_tpu.utils import compile_cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    root = Path(compile_cache.__file__).resolve().parents[2]
+    assert compile_cache.default_cache_dir() == root / ".jax_cache"
+    assert ".jax_cache/" in (root / ".gitignore").read_text().split()

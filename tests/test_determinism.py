@@ -1,5 +1,5 @@
 """Determinism guarantees (SURVEY §5: the reference's concurrency safety is
-mutex-by-convention; the TPU build's equivalent is pure functions, so we
+mutex-by-convention; this build's equivalent is pure functions, so we
 pin bitwise run-to-run determinism instead of racing threads).
 
 Same input + same state must give bit-identical output across repeated

@@ -3,7 +3,7 @@
 Golden vectors in tests/data/libcorrect_vectors.npz were generated by
 running the reference's vendored libcorrect (core/libcorrect) on random
 payloads (SURVEY.md §4: libcorrect's test suite is the bit-exactness
-oracle for the TPU FEC kernels).
+oracle for the FEC decoders).
 """
 
 from pathlib import Path
@@ -163,3 +163,77 @@ def test_native_traceback_matches_graph_backtrace():
     ref4 = np.asarray(code.decode_soft(jnp.asarray(noisy), flush_bits=4))
     got4 = code.decode_soft_np(noisy, flush_bits=4)
     np.testing.assert_array_equal(got4, ref4)
+
+
+def _noisy_stream(code, nbytes, sigma, seed):
+    rng = np.random.default_rng(seed)
+    msg = rng.integers(0, 256, nbytes).astype(np.uint8)
+    bits = np.unpackbits(code.encode(msg)).astype(np.float32)
+    return msg, np.clip(bits * 255.0 + rng.normal(0, sigma, bits.shape),
+                        0, 255).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_decode_soft_stream_matches_exact(dtype):
+    """The batched stream Viterbi (vmapped ACS scan + reverse-scan
+    traceback in one jit) == the exact decode on a long noisy stream, for
+    f32 soft bits and for integral u8 symbols (shipped as uint8)."""
+    code = ConvCode(2, 7, CONV_R12_7)
+    _, noisy = _noisy_stream(code, 1500, 48, seed=11)
+    if dtype == np.uint8:
+        noisy = np.round(noisy).astype(np.uint8)
+    exact = np.asarray(code.decode_soft(jnp.asarray(noisy.astype(np.float32))))
+    stream = code.decode_soft_stream(noisy, chunk_bits=1024, overlap_bits=96)
+    assert stream.shape == exact.shape
+    np.testing.assert_array_equal(stream, exact)
+
+
+@pytest.mark.parametrize("chunk_bits", [512, 700, 1024])
+def test_decode_soft_stream_seams(chunk_bits):
+    """Seams at every chunk boundary, including a chunk length that does
+    not divide the trellis and windows clipped at the stream's end: the
+    decoded message is recovered bit-exactly across all of them."""
+    code = ConvCode(2, 7, CONV_R12_7)
+    msg, noisy = _noisy_stream(code, 800, 40, seed=chunk_bits)
+    bits = code.decode_soft_stream(noisy, chunk_bits=chunk_bits,
+                                   overlap_bits=96)
+    np.testing.assert_array_equal(np.packbits(bits)[: len(msg)], msg)
+
+
+def test_decode_soft_stream_short_input_is_exact():
+    """Input no longer than one window takes the exact decode, including
+    the libcorrect golden vector."""
+    code = ConvCode(2, 7, CONV_R12_7)
+    _, noisy = _noisy_stream(code, 200, 48, seed=3)
+    np.testing.assert_array_equal(code.decode_soft_stream(noisy),
+                                  code.decode_soft_np(noisy))
+    bits = code.decode_soft_stream(VEC["conv_soft"].astype(np.float32))
+    n = int(VEC["conv_declen"])
+    np.testing.assert_array_equal(np.packbits(bits)[:n], VEC["conv_dec"])
+
+
+def test_decode_soft_stream_libcorrect_vector_at_seams():
+    """The libcorrect golden soft vector, decoded as a stream with
+    windows much shorter than it (every seam inside the vector), equals
+    libcorrect's own decode."""
+    code = ConvCode(2, 7, CONV_R12_7)
+    bits = code.decode_soft_stream(VEC["conv_soft"], chunk_bits=64,
+                                   overlap_bits=48)
+    n = int(VEC["conv_declen"])
+    np.testing.assert_array_equal(np.packbits(bits)[:n], VEC["conv_dec"])
+
+
+def test_packed_acs_decisions_match_unpacked():
+    """The stream path's bit-packed decisions carry the same bits as the
+    exact path's [T, S] decisions, for S below and above one word."""
+    rng = np.random.default_rng(9)
+    for order, polys in ((5, (0o23, 0o35)), (7, CONV_R12_7)):
+        code = ConvCode(2, order, polys)
+        soft = jnp.asarray(rng.uniform(0, 255, (300, 2)).astype(np.float32))
+        m1, dec = code._acs(soft)
+        m2, packed = code._acs(soft, pack=True)
+        S = code.num_states
+        n = np.arange(S)
+        unpacked = (np.asarray(packed)[:, n // 32] >> (n % 32)) & 1
+        np.testing.assert_array_equal(unpacked.astype(bool), np.asarray(dec))
+        np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))

@@ -188,7 +188,7 @@ def test_rrc_interpolator_pulse_shaping():
 
 
 def test_decimating_fir_conv_path_matches_unrolled():
-    """The strided-lax.conv decimator (TPU default) must match the
+    """The strided-lax.conv decimator (SDRPP_TPU_DECIM=conv) must match the
     unrolled polyphase form bit-closely for every dtype/taps combo."""
     import sdrpp_tpu.ops.fir as F
 
@@ -225,7 +225,7 @@ def test_decimating_fir_conv_path_matches_unrolled():
 
 
 def test_mix_bank_product_path_matches_angle():
-    """The phasor-product LO synthesis (TPU default) must match the
+    """The phasor-product LO synthesis (SDRPP_TPU_MIX=product) must match the
     wrapped-angle cos/sin form, including the carried phase."""
     import sdrpp_tpu.ops.mix as M
 

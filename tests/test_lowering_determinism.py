@@ -1,16 +1,17 @@
 """Lowered-module determinism: the persistent compilation cache is keyed
-by the serialized module, and Pallas/Mosaic kernel bodies embed Python
-traceback locations — so without compile_cache's traceback stripping,
-the SAME graph built from two different call sites lowers to different
-bytes and silently misses the cache (found on hardware: `cli preheat`'s
-corpus never warmed the UI engine's identical graphs). These tests pin
-the property on the real TPU lowering, produced chiplessly via
-jax.export with platforms=["tpu"] (the Mosaic payload survives export,
-unlike the interpret-mode fallback the CPU backend would take)."""
+by the serialized module, and Pallas kernel bodies embed Python traceback
+locations — so without compile_cache's traceback stripping, the SAME
+graph built from two different call sites lowers to different bytes and
+silently misses the cache (`cli preheat`'s corpus would never warm the UI
+engine's identical graphs). These tests pin the property on the real GPU
+lowering, produced without a card via jax.export with platforms=["cuda"]
+(the Triton kernel payload survives export, unlike the interpret mode
+the CPU backend would take)."""
 
 import jax
 import jax.numpy as jnp
 import pytest
+from jax.export import DisabledSafetyCheck
 
 from sdrpp_tpu.utils.compile_cache import enable_persistent_cache
 
@@ -19,10 +20,20 @@ from sdrpp_tpu.utils.compile_cache import enable_persistent_cache
 def _cache_on(tmp_path, monkeypatch):
     monkeypatch.delenv("SDRPP_TPU_NO_CACHE", raising=False)
     enable_persistent_cache(cache_dir=tmp_path / "cache")
-    # the engaged chunk-parallel kernel is what embeds Mosaic payloads
+    # the engaged chunk-parallel kernel is what embeds the Triton payload
     from sdrpp_tpu.ops import scans_pallas as sp
-    monkeypatch.setattr(sp, "_pallas_on_tpu", lambda: True)
+    monkeypatch.setattr(sp, "pallas_gpu_supported", lambda: True)
     yield
+
+
+_TRITON = "__gpu$xla.gpu.triton"
+
+
+def _export(fn, *args) -> str:
+    return jax.export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[DisabledSafetyCheck.custom_call(_TRITON)])(
+        *args).mlir_module()
 
 
 def _export_pll_from_site_a() -> str:
@@ -31,8 +42,7 @@ def _export_pll_from_site_a() -> str:
     pll = PLLChunked(0.01)
     st = pll.init_state()
     x = jnp.zeros(32768, jnp.complex64)
-    return jax.export.export(jax.jit(pll), platforms=["tpu"])(
-        st, x).mlir_module()
+    return _export(pll, st, x)
 
 
 def _export_pll_from_site_b() -> str:
@@ -45,14 +55,13 @@ def _export_pll_from_site_b() -> str:
     def wrapped():
         st = pll.init_state()
         x = jnp.zeros(32768, jnp.complex64)
-        return jax.export.export(jax.jit(pll), platforms=["tpu"])(
-            st, x).mlir_module()
+        return _export(pll, st, x)
 
     return wrapped()
 
 
 def test_mosaic_payload_present():
-    assert "tpu_custom_call" in _export_pll_from_site_a()
+    assert _TRITON in _export_pll_from_site_a()
 
 
 def test_same_graph_different_call_sites_lower_identically():

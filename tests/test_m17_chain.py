@@ -123,8 +123,8 @@ def _modulate(frame_bit_blocks, fs, n_preamble=1200, rng=None):
 def test_m17_lsf_through_chunked_mm_interpret():
     """The chunk-parallel MM emits a lane-major boolean MASK (not a
     prefix); M17Decoder must boolean-index or the 4FSK bitstream garbles
-    with zero-filled slots. CPU CI falls back to the scalar prefix
-    kernel, so this test forces the chunked path via interpret mode."""
+    with zero-filled slots. The chunked MM is plain XLA, so it engages on
+    the CPU too at this block size."""
     from sdrpp_tpu.models.m17_chain import M17Decoder
 
     fs = 48000.0
@@ -132,7 +132,6 @@ def test_m17_lsf_through_chunked_mm_interpret():
     iq = _modulate(blocks, fs, rng=np.random.default_rng(7))
 
     dec = M17Decoder(fs)
-    dec.demod.recov.interpret = True  # engage mm_symbols_chunked on CPU
     events = []
     bs = 16000
     for i in range(0, len(iq) - bs + 1, bs):

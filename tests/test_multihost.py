@@ -1,7 +1,7 @@
 """Real multi-process jax.distributed test (fake 2-host pod on CPU).
 
 SURVEY §2.15 "multi-host ingest": the reference has no multi-node story
-beyond its TCP server; the TPU build scales channels across hosts with
+beyond its TCP server; this build scales channels across hosts with
 jax.distributed + a global mesh. This test launches TWO separate Python
 processes (4 virtual CPU devices each -> an 8-device global mesh),
 runs the channel-sharded MultiHostReceiver in both, and checks the

@@ -40,7 +40,7 @@ print("WARM", eng.blocks)
 
 
 def _env(tmp_path):
-    return dict(os.environ, SDRPP_TPU_CACHE_DIR=str(tmp_path / "cache"),
+    return dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cache"),
                 SDRPP_TPU_CACHE_MIN_SECS="0", JAX_PLATFORMS="cpu",
                 JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="-1")
 

@@ -29,9 +29,9 @@ def test_syndrome_of_valid_block_is_zero():
 
 def test_decoder_full_ps_name():
     dec = rds.RDSDecoder()
-    # Send PS name "TPU SDR " via four group-0 segments, twice for sync.
+    # Send PS name "JAX SDR " via four group-0 segments, twice for sync.
     bits = []
-    name = b"TPU SDR "
+    name = b"JAX SDR "
     for rep in range(3):
         for seg in range(4):
             bits += make_group(pi=0x54A8, pty=7, group_type=0, offset=seg,
@@ -39,13 +39,13 @@ def test_decoder_full_ps_name():
     dec.process(bits)
     assert dec.pi_code == 0x54A8
     assert dec.program_type == 7
-    assert dec.ps_name == "TPU SDR "
+    assert dec.ps_name == "JAX SDR "
     assert dec.groups_decoded >= 4
 
 
 def test_decoder_radiotext():
     dec = rds.RDSDecoder()
-    text = b"HELLO FROM TPU RADIO"
+    text = b"HELLO FROM JAX RADIO"
     bits = []
     for rep in range(2):
         for seg in range((len(text) + 3) // 4):
@@ -55,7 +55,7 @@ def test_decoder_radiotext():
                       (chunk[0] << 8) | chunk[1], (chunk[2] << 8) | chunk[3]]
             bits += rds.encode_group(blocks)
     dec.process(bits)
-    assert dec.radio_text_str.startswith("HELLO FROM TPU RADIO")
+    assert dec.radio_text_str.startswith("HELLO FROM JAX RADIO")
 
 
 def test_decoder_error_correction():

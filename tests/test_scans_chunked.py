@@ -2,7 +2,7 @@
 
 The chunked PLL/AGC drivers cut a long block into K overlapping lanes that
 each re-acquire over a W-sample warm-up window (the stream-Viterbi trick
-from ops/fec_pallas.decode_soft_stream). These tests pin the documented
+from ops/fec.decode_soft_stream). These tests pin the documented
 contract in interpret mode on CPU:
 
 - on a locked signal, payload outputs match the exact sequential scan to
@@ -10,7 +10,7 @@ contract in interpret mode on CPU:
 - the carried ``hist`` hands real history across blocks (no first-sample
   glitch on block 2);
 - SDRPP_TPU_LOOPS=exact and short blocks fall back BIT-identically to the
-  exact Pallas recurrence.
+  exact lane-kernel recurrence.
 """
 
 import numpy as np

@@ -3,6 +3,7 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from sdrpp_tpu.ops.scans import PLL, FastAGC
 from sdrpp_tpu.ops.scans_pallas import FastAGCPallas, PLLPallas
@@ -142,3 +143,107 @@ def test_lane_batched_kernels_match_lax_scan():
                                 jax.tree_util.tree_leaves(s2)):
             np.testing.assert_allclose(np.asarray(leaf1), np.asarray(leaf2),
                                        atol=2e-4, err_msg=name)
+
+
+def _loop_pairs(lead):
+    from sdrpp_tpu.ops import scans as S
+    from sdrpp_tpu.ops import scans_pallas as SP
+    return [
+        (S.PLL(bandwidth=0.01, init_freq=0.3, lead_shape=lead),
+         SP.PLLPallas(bandwidth=0.01, init_freq=0.3, lead_shape=lead,
+                      interpret=True)),
+        (S.Costas(2, 0.01, lead_shape=lead),
+         SP.CostasPallas(2, 0.01, lead_shape=lead, interpret=True)),
+        (S.Costas(4, 0.01, lead_shape=lead),
+         SP.CostasPallas(4, 0.01, lead_shape=lead, interpret=True)),
+        (S.Costas(8, 0.01, lead_shape=lead),
+         SP.CostasPallas(8, 0.01, lead_shape=lead, interpret=True)),
+        (S.FastAGC(1.0, 10.0, 0.01, lead_shape=lead),
+         SP.FastAGCPallas(1.0, 10.0, 0.01, lead_shape=lead, interpret=True)),
+        (S.AGC(1.0, 0.1, 0.01, 1000.0, 1.0, lead_shape=lead),
+         SP.AGCPallas(1.0, 0.1, 0.01, 1000.0, 1.0, lead_shape=lead,
+                      interpret=True)),
+    ]
+
+
+@pytest.mark.parametrize("shape", [(1000,), (5, 700), (40, 300)])
+@pytest.mark.parametrize("loop", range(6))
+def test_lane_kernel_matches_lax_scan(shape, loop):
+    """The lane kernel (interpret mode) == ops/scans.py's lax.scan for
+    every loop: 1-D (one lane) and [C, n] banks whose C is not a multiple
+    of the 32-lane tile (5 -> an 8-lane tile, 40 -> two 32-lane tiles,
+    both padded)."""
+    rng = np.random.default_rng(loop)
+    x = (rng.standard_normal(shape)
+         + 1j * rng.standard_normal(shape)).astype(np.complex64) * 0.7
+    ref, ker = _loop_pairs(shape[:-1])[loop]
+    s1, y1 = ref(ref.init_state(), jnp.asarray(x))
+    s2, y2 = ker(ker.init_state(), jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2),
+                               atol=2e-4, rtol=2e-4)
+    for a, b in zip(jax.tree_util.tree_leaves(s1),
+                    jax.tree_util.tree_leaves(s2)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-4)
+
+
+@pytest.mark.parametrize("n", [64, 1003])
+def test_lane_kernel_unrolled_steps_and_tail(n):
+    """The compiled form's unrolled time loop (8 steps per iteration plus
+    an n % 8 tail), run in the interpreter: same recurrence as one step
+    at a time, up to float rounding."""
+    from sdrpp_tpu.ops import scans_pallas as SP
+
+    rng = np.random.default_rng(n)
+    step = SP._agc_step(1.0, 0.1, 0.01, 1e4, 10.0)
+    amps = jnp.asarray(np.abs(rng.standard_normal((n, 37)))
+                       .astype(np.float32))
+    smax = jnp.flip(jax.lax.cummax(jnp.flip(amps, 0), axis=0), 0)
+    state = jnp.ones((2, 37), jnp.float32)
+    o1, f1 = SP.lane_scan(step, state, [amps, smax], interpret=True)
+    o8, f8 = SP.lane_scan(step, state, [amps, smax], interpret=True,
+                          unroll=8)
+    np.testing.assert_allclose(np.asarray(o8), np.asarray(o1), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(f8), np.asarray(f1), rtol=1e-5)
+
+
+def test_meteor_costas_lane_kernel_matches_scan():
+    """The "meteor" Costas step in the lane kernel == MeteorCostas's
+    phase-domain lax.scan (the formulation both share)."""
+    from sdrpp_tpu.models.digital import MeteorCostas
+    from sdrpp_tpu.ops import scans_pallas as SP
+
+    rng = np.random.default_rng(6)
+    n = 2000
+    ph = np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n) + 0.01 * np.arange(n)
+    x = (np.exp(1j * ph) + 0.05 * rng.standard_normal(n)).astype(np.complex64)
+    mc = MeteorCostas(0.01, broken_modulation=True)
+    st = mc.init_state()
+    st1, y1 = mc(st, jnp.asarray(x))
+    out, ph_f, fr_f = SP.costas_phases_pallas(
+        x.real, x.imag, st["phase"], st["freq"], "meteor", mc.alpha,
+        mc.beta, mc.min_freq, mc.max_freq, interpret=True)
+    y2 = x * np.exp(-1j * np.asarray(out))
+    np.testing.assert_allclose(np.asarray(y1), y2, atol=1e-4)
+    assert abs(float(st1["freq"]) - float(fr_f)) < 1e-5
+
+
+def test_lane_cost_model():
+    """Chunk lanes under the lane kernel's cost model: lanes are nearly
+    free up to RESIDENT_TILES tiles, so K grows until L reaches the
+    warm-up; past one wave the model trades lanes for steps; short blocks
+    stay exact."""
+    from sdrpp_tpu.ops import scans_pallas as SP
+
+    assert SP._lane_waves(1) == 1
+    assert SP._lane_waves(SP.LANE_TILE * SP.RESIDENT_TILES) == 1
+    assert SP._lane_waves(SP.LANE_TILE * SP.RESIDENT_TILES + 1) == 2
+    # meteor's 2^20 block, W = 1024: max lanes, 1 wave
+    assert SP._chunk_lanes_for(1 << 20, 1024, 512) == 512
+    # SSB-bank-sized AGC [64, 2^18], W = 2048: L must stay >= W
+    assert SP._chunk_lanes_for(1 << 18, 2048, 512, channels=64) == 128
+    # a bank wide enough that 128 lanes each would need a second wave
+    big = SP.LANE_TILE * SP.RESIDENT_TILES // 64
+    k = SP._chunk_lanes_for(1 << 18, 2048, 512, channels=big)
+    assert 0 < k and big * k <= SP.LANE_TILE * SP.RESIDENT_TILES
+    # too short to win by 2x: exact
+    assert SP._chunk_lanes_for(3000, 1024, 512) == 0

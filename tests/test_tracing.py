@@ -1,5 +1,5 @@
 """Tracing/monitoring utilities (SURVEY §5: jax.profiler + per-block
-counters as the TPU build's observability layer)."""
+counters as this build's observability layer)."""
 
 import time
 

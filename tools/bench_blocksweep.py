@@ -28,7 +28,7 @@ def main():
     from sdrpp_tpu.models.digital import MeteorDemod
     from sdrpp_tpu.ops.scans_pallas import AGCChunked, FastAGCChunked, \
         PLLChunked
-    from sdrpp_tpu.utils.speed_tester import calibrate_sync, speed_test
+    from sdrpp_tpu.utils.speed_tester import speed_test
 
     quick = "--quick" in sys.argv
     sizes_small = [1 << 14, 1 << 16, 1 << 18]
@@ -49,9 +49,6 @@ def main():
                 print(f"{name:<28} {n:>8} FAILED {type(e).__name__}: "
                       f"{str(e)[:80]}", flush=True)
 
-    cal = calibrate_sync(size=1024 if "--cpu" in sys.argv else 2048, iters=8)
-    print(f"calibration: {cal['tflops']:.1f} TFLOP/s true-f32 "
-          f"(plausible={cal['plausible']})", flush=True)
 
     sweep("WFM stereo demod (240k)",
           lambda: WFMDemod(deviation=75000.0, samplerate=240000.0,
@@ -72,9 +69,6 @@ def main():
           lambda: AGCChunked(1.0, 1e-3, 1e-4, 1e4, 10.0),
           1.0, sizes_big, dtype=jnp.float32)
 
-    cal2 = calibrate_sync(size=1024 if "--cpu" in sys.argv else 2048,
-                          iters=8)
-    print(f"calibration after: {cal2['tflops']:.1f} TFLOP/s", flush=True)
     return 0
 
 

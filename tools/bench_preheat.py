@@ -77,8 +77,8 @@ def main() -> None:
         cold_dir = Path(td) / "cold"
         warm_dir = Path(td) / "warm"
 
-        env_cold = dict(os.environ, SDRPP_TPU_CACHE_DIR=str(cold_dir))
-        env_warm = dict(os.environ, SDRPP_TPU_CACHE_DIR=str(warm_dir))
+        env_cold = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(cold_dir))
+        env_warm = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(warm_dir))
 
         print("phase A: cold first session (empty cache)", flush=True)
         cold = _ui_readiness(env_cold, args.samplerate, args.mode,

@@ -53,7 +53,7 @@ def synth_capture(path: Path) -> float:
 
 
 def run_once(cache_dir: str, use_cpu: bool, cap: Path, out: Path) -> float:
-    env = dict(os.environ, SDRPP_TPU_CACHE_DIR=cache_dir)
+    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=cache_dir)
     if use_cpu:
         env["JAX_PLATFORMS"] = "cpu"
         env["PYTHONPATH"] = str(ROOT)

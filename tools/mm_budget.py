@@ -64,11 +64,8 @@ def main():
 
     from sdrpp_tpu.models.digital import MeteorDemod
     from sdrpp_tpu.ops.clock_recovery_chunked import _GROUP
-    from sdrpp_tpu.utils.speed_tester import calibrate_sync, speed_test
+    from sdrpp_tpu.utils.speed_tester import speed_test
 
-    cal = calibrate_sync(size=1024 if "--cpu" in sys.argv else 2048,
-                         iters=8)
-    print(f"calibration {cal['tflops']:.1f} TFLOP/s", flush=True)
 
     n = 1 << 20
     md = MeteorDemod()
